@@ -30,9 +30,8 @@ def setup(description, cpu=False, x64=False, **extra_args):
         jax.config.update('jax_platforms', 'cpu')
     if args.x64:
         jax.config.update('jax_enable_x64', True)
-    jax.config.update('jax_compilation_cache_dir',
-                      os.path.join(os.path.dirname(__file__), '..',
-                                   '.jax_cache'))
+    from mimo_tpu.utils.cache import use_compile_cache
+    use_compile_cache()
     return args
 
 

@@ -1,6 +1,6 @@
-"""mimo_tpu: a TPU-native Bayesian mixture-model inference framework.
+"""mimo_tpu: a JAX Bayesian mixture-model inference framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
+A from-scratch JAX/XLA/Pallas design of the capability surface of
 `hanyas/mimo` (conjugate exponential-family inference in mixture models:
 fixed-K GMMs, truncated Dirichlet-process mixtures, infinite mixtures of
 linear experts, hierarchical/tied variants; EM/MAP, blocked Gibbs,
@@ -16,11 +16,11 @@ statistics (fixed K*d^2 size) are the only cross-device reduction.
 
 import jax as _jax
 
-# TPU matmuls default to bfloat16 passes; conjugate-update algebra
-# (psi^{-1} + S - kappa' m' m'^T cancellations) silently goes non-PSD at
-# bf16 and Cholesky returns NaN. This is a numerical-inference framework:
-# float32 contraction precision is the correctness default. Hot kernels
-# that can tolerate less (the E-step log-prob matmul) opt down explicitly.
+# On the GPU, XLA may run float32 matmuls in TF32 (about three decimal
+# digits); the conjugate-update algebra (psi^{-1} + S - kappa' m' m'^T
+# cancellations) then goes non-PSD and Cholesky returns NaN. This is a
+# numerical-inference framework: full float32 contraction precision is
+# the correctness default, which this setting keeps out of TF32.
 _jax.config.update('jax_default_matmul_precision', 'float32')
 
 from mimo_tpu import distributions

@@ -5,7 +5,7 @@ Model:  Lambda ~ W(psi0, nu0);  A | Lambda ~ MN(M0, Lambda^{-1}, K0^{-1});
         c_k | Lambda ~ N(mu0_k, (kappa0_k Lambda)^{-1});
         y | x, z=k ~ N(A x + c_k, Lambda^{-1}).
 
-TPU-native re-design of AffineLinearGaussianWithMatrixNormalWishart /
+JAX re-design of AffineLinearGaussianWithMatrixNormalWishart /
 TiedAffineLinearGaussiansWithMatrixNormalWisharts (bayesian.py:1137-1522)
 and the Affine likelihood statistics (lingauss.py:401-746). The reference's
 inner Gibbs/VI loops (nb_iter) become scans; its K-averaged slope/precision

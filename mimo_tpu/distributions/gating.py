@@ -1,7 +1,7 @@
 """Gating priors: Dirichlet and truncated stick-breaking (DP) — with their
 conjugate categorical updates, expectations and ELBO terms.
 
-TPU-native re-design of dirichlet.py:8-214 and the gating halves of
+JAX re-design of dirichlet.py:8-214 and the gating halves of
 bayesian.py:36-179. The stick-breaking construction follows Ishwaran &
 James (2001) / Blei & Jordan (2006), as the reference does
 (dirichlet.py:100-106): v_k ~ Beta(gamma_k, delta_k),

@@ -5,7 +5,7 @@ Model:  (tau, Lambda) ~ NW(m0, kappa0, Psi0, nu0)        [hyper prior]
         mu_k | tau, Lambda ~ N(tau, (kappa_k Lambda)^{-1})
         x | z=k ~ N(mu_k, Lambda^{-1})
 
-TPU-native re-design of GaussianWithHierarchicalNormalWishart /
+JAX re-design of GaussianWithHierarchicalNormalWishart /
 TiedGaussiansWithHierarchicalNormalWisharts (bayesian.py:503-793) and the
 scaled-precision Gaussian prior (gaussian.py:890-1036). The inner
 blocked-Gibbs chain and the inner coordinate-ascent loop become

@@ -4,7 +4,7 @@ Model (per expert k, output row i): lambda_ki ~ Gamma(alpha_ki, beta_ki),
 row a_ki | lambda_ki ~ N(M_ki, (lambda_ki)^{-1} K_k^{-1});
 likelihood  y_i ~ N(a_ki . xt, lambda_ki^{-1}).
 
-TPU-native re-design of LinearGaussianWithDiagonalPrecision /
+JAX re-design of LinearGaussianWithDiagonalPrecision /
 MatrixNormalWithDiagonalPrecision / MatrixNormalGamma
 (lingauss.py:747-1130, matrix.py:178-300, composite.py:811-1075). The
 column precision K is shared across output rows; alphas/betas are per-row.

@@ -4,7 +4,7 @@ Model (per expert k): Lambda_k ~ W(psi_k, nu_k)  (p x p noise precision),
 A_k | Lambda_k ~ MN(M_k, Lambda_k^{-1} (rows), K_k^{-1} (cols))  (p x q);
 likelihood  y ~ N(A_k xt, Lambda_k^{-1})  with xt = [x; 1] if affine.
 
-TPU-native re-design of LinearGaussianWithPrecision / MatrixNormal /
+JAX re-design of LinearGaussianWithPrecision / MatrixNormal /
 MatrixNormalWishart (lingauss.py:13-369, matrix.py:10-177,
 composite.py:550-783). Natural params match composite.py:577-599:
   nat = [M K, K, psi^{-1} + M K M^T, nu - p - 1 + q]
@@ -80,7 +80,7 @@ def augment(x, affine: bool):
 def suff_stats(x, y, resp):
     """x: (N, q) (already augmented), y: (N, p), resp: (N, K).
 
-    Replaces lingauss.py:306-325's einsums with MXU matmuls over shared
+    Replaces lingauss.py:306-325's einsums with matmuls over shared
     (N, p*q)/(N, q*q)/(N, p*p) outer-product features.
     """
     n, q = x.shape

@@ -4,7 +4,7 @@ Model (per component k, per dimension i): lambda_ki ~ Gamma(alpha_ki, beta_ki),
 mu_ki | lambda_ki ~ N(m_ki, (kappa_ki lambda_ki)^{-1});
 likelihood x_i ~ N(mu_ki, lambda_ki^{-1}).
 
-TPU-native re-design of GaussianWithDiagonalPrecision / Gamma / NormalGamma
+JAX re-design of GaussianWithDiagonalPrecision / Gamma / NormalGamma
 (gaussian.py:575-888, gamma.py:8-113, composite.py:286-520). Natural params
 match composite.py:313-337:
   nat = [kappa*m, kappa, 2*alpha - 1, 2*beta + kappa*m^2]

@@ -5,7 +5,7 @@ mu_k | Lambda_k ~ N(m_k, (kappa_k Lambda_k)^{-1});
 likelihood x ~ N(mu_k, Lambda_k^{-1}).
 
 All functions take a leading K axis on parameters and return (N, K) for
-per-point quantities. This file is the TPU-native re-design of the
+per-point quantities. This file is the JAX re-design of the
 reference's GaussianWithPrecision / Wishart / NormalWishart /
 StackedNormalWisharts stack (gaussian.py:251-543, composite.py:19-283) —
 K components are a batch axis, not a Python list of objects.
@@ -78,7 +78,7 @@ def suff_stats(x, resp):
     """Weighted statistics from data x (N, d) and resp (N, K).
 
     Replaces the 'kn,nd->kd' / 'nd,kn,nl->kdl' einsums of
-    gaussian.py:491-505 with two MXU matmuls: resp^T @ x and
+    gaussian.py:491-505 with two matmuls: resp^T @ x and
     (x ⊗ x)^T @ resp via the shared (N, d^2) squared-feature matrix.
     """
     n, d = x.shape

@@ -6,9 +6,7 @@ device compute and the host->device transfers of the PREVIOUS batch.
 JAX dispatch is already asynchronous, but the producer itself (e.g.
 MmapDataset.gather page-faulting through a cold file) is synchronous
 Python — without a reader thread it serializes with the h2d put of the
-batch it just produced. Measured on the SVI stream bench: the reader
-thread takes ingest from ~5M pts/s to the host IO ceiling (BENCH_NOTES
-out-of-core section).
+batch it just produced.
 
 The queue is bounded (default 2 groups) so a fast producer cannot fill
 host RAM with decoded batches.

@@ -1,6 +1,6 @@
 """Gaussian mixture models: maximum-likelihood GMM and Bayesian (DP-)GMM.
 
-TPU-native re-design of mimo/mixtures/gmm.py. `BayesianGMM` covers the
+JAX re-design of mimo/mixtures/gmm.py. `BayesianGMM` covers the
 reference's `BayesianMixtureOfGaussians` in all its example configurations:
   * gmm/dgmm:  full or diagonal covariance (NIW or Normal-Gamma components)
   * tgmm/tdgmm: tied covariance (tied_family)
@@ -76,22 +76,14 @@ class BayesianGMM(BayesianMixture):
 
     def _estep_spec(self):
         from mimo_tpu.ops.family_estep import (
-            gaussian_spec, diag_gaussian_spec, hier_gaussian_spec,
-            GAUSS_SPLIT_F_DIM)
+            gaussian_spec, diag_gaussian_spec, hier_gaussian_spec)
         if isinstance(self.components_prior, NIW):
-            spec = gaussian_spec()
-            dim = self.components_prior.mu.shape[-1]
-        elif isinstance(self.components_prior, NG):
-            spec = diag_gaussian_spec()
-            dim = self.components_prior.mu.shape[-1]
-        elif isinstance(self.components_prior, HierTied):
-            spec = hier_gaussian_spec()
-            dim = self.components_prior.mus.shape[-1]
-        else:
-            return None
-        if dim >= GAUSS_SPLIT_F_DIM:
-            spec = spec._replace(hi_lo_features=True)
-        return spec
+            return gaussian_spec()
+        if isinstance(self.components_prior, NG):
+            return diag_gaussian_spec()
+        if isinstance(self.components_prior, HierTied):
+            return hier_gaussian_spec()
+        return None
 
     # sampling synthetic data from the prior predictive of given params
     def sample(self, state, key=None, n=1, params='mode'):
@@ -126,9 +118,9 @@ class BayesianGMM(BayesianMixture):
         covs = inv_psd(params.lmbda)
         chol = jnp.linalg.cholesky(symmetrize(covs))
         z = jax.random.normal(k_x, (n, params.mu.shape[-1]), params.mu.dtype)
-        # gather-free: one-hot contraction instead of chol[labels] — the
-        # gathered (N, d, d) tensor gets a T(2,128) layout on TPU whose
-        # padding blows memory up 64x at N in the tens of millions.
+        # gather-free: one-hot contraction instead of chol[labels], which
+        # would materialize an (N, d, d) tensor at N in the tens of
+        # millions.
         oh = jax.nn.one_hot(labels, params.mu.shape[0], dtype=z.dtype)
         x = oh @ params.mu + jnp.einsum('nk,kde,ne->nd', oh, chol, z)
         return x, labels

@@ -1,7 +1,7 @@
 """Two-level nested mixtures: an outer mixture over M clusters, each
 cluster holding its own inner mixture of K components.
 
-TPU-native re-design of BayesianMixtureOfMixtureOfGaussians (hgmm.py:298-)
+JAX re-design of BayesianMixtureOfMixtureOfGaussians (hgmm.py:298-)
 and BayesianMixtureOfMixtureOfLinearGaussians (hilr.py:293-). Key design
 changes vs the reference:
 
@@ -243,8 +243,7 @@ class BayesianMixtureOfMixtures:
         the generic fused machinery (family_estep) applies with the
         (M, K)-stacked posteriors/params flattened."""
         from mimo_tpu.ops.family_estep import (
-            EStepSpec, gaussian_spec, hier_gaussian_spec, ilr_spec,
-            GAUSS_SPLIT_F_DIM)
+            EStepSpec, gaussian_spec, hier_gaussian_spec, ilr_spec)
         from mimo_tpu.distributions.hierarchical import HierTied
         mm, kk = self.cluster_size, self.mixture_size
         cp = self.components_prior
@@ -253,12 +252,8 @@ class BayesianMixtureOfMixtures:
                             affine=self.affine)
         elif isinstance(cp, HierTied):
             base = hier_gaussian_spec()
-            if cp.mus.shape[-1] >= GAUSS_SPLIT_F_DIM:
-                base = base._replace(hi_lo_features=True)
         else:
             base = gaussian_spec()
-            if cp.mu.shape[-1] >= GAUSS_SPLIT_F_DIM:
-                base = base._replace(hi_lo_features=True)
         return EStepSpec(
             features=base.features,
             theta=lambda comps: jax.vmap(base.theta)(comps).reshape(
@@ -269,18 +264,8 @@ class BayesianMixtureOfMixtures:
                 mm * kk, -1)),
             # the kernel-side feature assembler is label-agnostic, so the
             # flat M*K spec inherits it — nested fused engines run on the
-            # same Mosaic kernels as the flat models (backend='auto')
-            features_t=base.features_t,
-            hi_lo_features=base.hi_lo_features)
-
-    def _kernel_rows(self, spec):
-        """Live VMEM row estimate for the Mosaic kernels' block-size cap
-        (mixture.BayesianMixture._kernel_rows with K = M*K)."""
-        m = jax.eval_shape(spec.theta, self.components_prior).shape[-1]
-        m8 = -(-m // 8) * 8
-        if getattr(spec, 'hi_lo_features', False):
-            m8 *= 2
-        return m8 + 4 * self.cluster_size * self.mixture_size
+            # same kernel as the flat models
+            feature_rows=base.feature_rows)
 
     def _split_flat(self, res):
         """Reshape a flat M*K FusedEStep back to (M, K)-stacked counts and
@@ -304,51 +289,31 @@ class BayesianMixtureOfMixtures:
         scans its local shard's blocks and one (M*K, m) psum crosses the
         mesh per sweep (ops/family_estep.fused_estep_sharded).
 
-        `backend`: as in BayesianMixture.fit_vi_fused — the flat M*K spec
-        inherits the family's on-core feature assembler, so 'auto' routes
-        single-chip TPU runs through the Mosaic kernel with K = M*K rows.
+        `backend`/`block_size`: as in BayesianMixture.fit_vi_fused — the
+        flat M*K spec inherits the family's kernel-side feature
+        assembler, so the fused kernel runs with K = M*K rows.
 
         Returns (HMixState, trace); the trace is the nested ELBO
         (lse identity + KL terms), unlike fit_vi's expected-complete
         log-likelihood trace. `tol` stops early on |dELBO| < tol."""
-        from mimo_tpu.ops.estep import pick_block_size
-        from mimo_tpu.ops.family_estep import (
-            fused_estep_blockwise, fused_estep_sharded)
-        from mimo_tpu.models.mixture import _elbo_loop, _resolve_backend
+        from mimo_tpu.ops.family_estep import estep_engine
+        from mimo_tpu.models.mixture import (
+            _elbo_loop, _fused_block_size, _resolve_backend)
 
         data = self._tx_data(data)
         key = _as_key(key)
         mm, kk = self.cluster_size, self.mixture_size
         spec = self._flat_spec()
-        n = data[0].shape[0]
-        use_pallas = _resolve_backend(backend, spec, mesh)
-        if use_pallas:
-            from mimo_tpu.ops.pallas_estep import (
-                fused_estep_pallas, fused_estep_pallas_sharded,
-                pick_pallas_block)
-            if block_size is None:
-                local = n if mesh is None else -(-n // mesh.shape['data'])
-                block_size = pick_pallas_block(     # any N: pad + mask
-                    local, rows=self._kernel_rows(spec))
-        else:
-            local_n = n if mesh is None else n // mesh.shape['data']
-            if block_size is None:
-                block_size = pick_block_size(local_n)
-            if local_n % block_size:
-                raise ValueError(
-                    f'per-device N={local_n} must be a multiple of '
-                    f'block_size={block_size}; pass a dividing block_size')
+        engine = _resolve_backend(backend, spec, self.components_prior)
+        block_size = _fused_block_size(data[0].shape[0], mesh, engine,
+                                       block_size, 'fit_vi')
+        estep = estep_engine(spec, engine, block_size, mesh)
         fn = self._jit('vi_fused', maxiter=maxiter, block_size=block_size,
                        randomize=randomize, tol=tol is not None, mesh=mesh,
-                       pallas=use_pallas)
+                       engine=engine)
 
         def run(data, key, tol):
             n = data[0].shape[0]
-            dtype = data[0].dtype
-            if use_pallas:
-                # pad + transpose ONCE, outside the sweep loop
-                from mimo_tpu.models.mixture import _pallas_xts
-                xts = _pallas_xts(data, block_size, mesh)
             r = jax.random.uniform(key, (n, mm), dtype=data[0].dtype,
                                    minval=1e-3, maxval=1.0)
             outer_resp = r / jnp.sum(r, axis=-1, keepdims=True)
@@ -368,21 +333,7 @@ class BayesianMixtureOfMixtures:
                     st.inner_gating)                          # (M, K)
                 lp = (st.outer_gating.expected_log_pi()[:, None]
                       + lp_in).reshape(-1)
-                if use_pallas and mesh is not None:
-                    res = fused_estep_pallas_sharded(spec, st.components,
-                                                     lp, xts, block_size,
-                                                     n, mesh)
-                    res = jax.tree.map(lambda a: a.astype(dtype), res)
-                elif use_pallas:
-                    res = fused_estep_pallas(spec, st.components, lp,
-                                             xts, block_size, n)
-                    res = jax.tree.map(lambda a: a.astype(dtype), res)
-                elif mesh is None:
-                    res = fused_estep_blockwise(spec, st.components, lp,
-                                                data, block_size)
-                else:
-                    res = fused_estep_sharded(spec, st.components, lp,
-                                              data, block_size, mesh)
+                res = estep(st.components, lp, data)
                 counts, stats = self._split_flat(res)
                 comps, gatings = jax.vmap(
                     lambda pc, pg, s, c: (self.family.update(pc, s),
@@ -421,13 +372,10 @@ class BayesianMixtureOfMixtures:
         Returns HMixGibbsState (labels are the OUTER cluster labels,
         = flat_label // K, matching fit_gibbs).
 
-        `backend`: as in BayesianMixture.fit_gibbs_fused — 'auto' routes
-        single-chip TPU runs through the Mosaic on-core-PRNG kernel with
-        K = M*K rows."""
-        from mimo_tpu.ops.estep import pick_block_size
-        from mimo_tpu.ops.family_estep import (
-            fused_gibbs_blockwise, fused_gibbs_sharded)
-        from mimo_tpu.models.mixture import _resolve_backend
+        `backend`/`block_size`: as in BayesianMixture.fit_vi_fused."""
+        from mimo_tpu.ops.family_estep import gibbs_engine
+        from mimo_tpu.models.mixture import (
+            _fused_block_size, _resolve_backend)
 
         data = self._tx_data(data)
         key = _as_key(key)
@@ -436,26 +384,12 @@ class BayesianMixtureOfMixtures:
         if spec.theta_plugin is None:
             raise NotImplementedError(
                 'no fused Gibbs spec for this family; use fit_gibbs')
-        n = data[0].shape[0]
-        use_pallas = _resolve_backend(backend, spec, mesh)
-        if use_pallas:
-            from mimo_tpu.ops.pallas_estep import pick_pallas_block
-            from mimo_tpu.ops.pallas_gibbs import (
-                fused_gibbs_pallas, fused_gibbs_pallas_sharded)
-            if block_size is None:
-                local = n if mesh is None else -(-n // mesh.shape['data'])
-                block_size = pick_pallas_block(     # any N: pad + mask
-                    local, rows=self._kernel_rows(spec))
-        else:
-            local_n = n if mesh is None else n // mesh.shape['data']
-            if block_size is None:
-                block_size = pick_block_size(local_n)
-            if local_n % block_size:
-                raise ValueError(
-                    f'per-device N={local_n} must be a multiple of '
-                    f'block_size={block_size}; pass a dividing block_size')
+        engine = _resolve_backend(backend, spec, self.components_prior)
+        block_size = _fused_block_size(data[0].shape[0], mesh, engine,
+                                       block_size, 'fit_gibbs')
+        sweep_labels = gibbs_engine(spec, engine, block_size, mesh)
         fn = self._jit('gibbs_fused', maxiter=maxiter,
-                       block_size=block_size, mesh=mesh, pallas=use_pallas)
+                       block_size=block_size, mesh=mesh, engine=engine)
         gibbs_update = getattr(self.family, 'gibbs_update', None)
 
         def run(data, key):
@@ -464,20 +398,9 @@ class BayesianMixtureOfMixtures:
             gatings0 = self.inner_gating_prior
             outer0 = self.outer_gating_prior
             params0 = jax.vmap(self.family.mode_params)(comps0)
-            if use_pallas:
-                # pad + transpose ONCE, outside the sweep loop; per-sweep
-                # int32 seeds feed the kernel's on-core PRNG
-                from mimo_tpu.models.mixture import _pallas_xts
-                xts = _pallas_xts(data, block_size, mesh)
-                seeds = jax.random.randint(
-                    jax.random.fold_in(key, 7), (maxiter,), 0, 2**31 - 1,
-                    dtype=jnp.int32)
-            else:
-                seeds = jnp.zeros((maxiter,), jnp.int32)   # unused
 
-            def sweep(carry, inp):
+            def sweep(carry, k):
                 comps, gatings, outer, params_prev, _ = carry
-                k, seed = inp
                 k_par, k_po, k_pi, k_lab = jax.random.split(k, 4)
                 if gibbs_update is None:
                     params = jax.vmap(self.family.sample_params)(
@@ -492,25 +415,7 @@ class BayesianMixtureOfMixtures:
                 log_pi = (jnp.log(jnp.clip(pi_o, 1e-37, None))[:, None]
                           + jnp.log(jnp.clip(pi_i, 1e-37, None))
                           ).reshape(-1)
-                if use_pallas and mesh is not None:
-                    labels, res = fused_gibbs_pallas_sharded(
-                        spec, seed, params, log_pi, xts, block_size,
-                        data[0].shape[0], mesh)
-                    res = jax.tree.map(lambda a: a.astype(dtype)
-                                       if a.dtype != jnp.int32 else a, res)
-                elif use_pallas:
-                    labels, res = fused_gibbs_pallas(
-                        spec, seed, params, log_pi, xts, block_size,
-                        data[0].shape[0])
-                    res = jax.tree.map(lambda a: a.astype(dtype)
-                                       if a.dtype != jnp.int32 else a, res)
-                elif mesh is None:
-                    labels, res = fused_gibbs_blockwise(
-                        spec, k_lab, params, log_pi, data, block_size)
-                else:
-                    labels, res = fused_gibbs_sharded(
-                        spec, k_lab, params, log_pi, data, block_size,
-                        mesh)
+                labels, res = sweep_labels(k_lab, params, log_pi, data)
                 counts, stats = self._split_flat(res)
                 if gibbs_update is None:
                     comps = jax.vmap(
@@ -532,7 +437,7 @@ class BayesianMixtureOfMixtures:
             labels0 = jnp.zeros((n,), jnp.int32)
             (comps, gatings, outer, _, labels), _ = jax.lax.scan(
                 sweep, (comps0, gatings0, outer0, params0, labels0),
-                (jax.random.split(key, maxiter), seeds))
+                jax.random.split(key, maxiter))
             return HMixGibbsState(outer_gating=outer, inner_gating=gatings,
                                   components=comps,
                                   labels=labels // kk)
@@ -663,8 +568,9 @@ class BayesianMixtureOfMixtures:
         outer weights. mesh/backend as in fit_vi_fused. Returns
         (HMixEMState, loglik trace). Reference anchor: hgmm.py:59-88 /
         hilr.py:39-78 (the dense nested ML loop)."""
+        from mimo_tpu.ops.family_estep import estep_engine
         from mimo_tpu.models.mixture import (
-            BayesianMixture, _pallas_xts, _resolve_backend)
+            _fused_block_size, _resolve_backend)
         from mimo_tpu.utils.stats import normalize_log as _nl
         if self.family.ml_update is None:
             raise NotImplementedError(
@@ -677,19 +583,16 @@ class BayesianMixtureOfMixtures:
         if spec.theta_plugin is None:
             raise NotImplementedError(
                 'no fused plug-in spec for this family; use fit_em')
-        n = data[0].shape[0]
-        use_pallas = _resolve_backend(backend, spec, mesh)
-        block_size = BayesianMixture._fused_block_size(
-            self, spec, n, mesh, use_pallas, block_size, 'fit_em')
+        engine = _resolve_backend(backend, spec, self.components_prior)
+        block_size = _fused_block_size(data[0].shape[0], mesh, engine,
+                                       block_size, 'fit_em')
         fn = self._jit('em_fused', maxiter=maxiter, block_size=block_size,
-                       mesh=mesh, pallas=use_pallas)
-        estep = BayesianMixture._fused_plugin_estep(
-            self, spec, mesh, use_pallas, block_size)
+                       mesh=mesh, engine=engine)
+        estep = estep_engine(spec._replace(theta=spec.theta_plugin), engine,
+                             block_size, mesh)
 
         def run(data, key):
             n = data[0].shape[0]
-            dtype = data[0].dtype
-            xts = _pallas_xts(data, block_size, mesh) if use_pallas else None
             # flat M*K anchor seeding (as BayesianMixture.fit_em_fused;
             # a flat random init is a symmetric fixed point under vmap)
             x0 = data[0]
@@ -717,7 +620,7 @@ class BayesianMixtureOfMixtures:
             def step(carry, _):
                 params, ilp, olp = carry
                 log_pi = (olp[:, None] + ilp).reshape(-1).astype(dtype)
-                res = estep(params, log_pi, data, xts, n, dtype)
+                res = estep(params, log_pi, data)
                 counts, stats = self._split_flat(res)
                 params = jax.vmap(self.family.ml_update)(stats)
                 ilp, olp = log_pis(counts)
@@ -825,8 +728,9 @@ class BayesianMixtureOfMixtures:
         mesh/backend as in fit_vi_fused. Returns (HMixState, trace).
         Reference anchor: the engine the reference declares but never
         implements (hilr.py:341-344) — see fit_map."""
+        from mimo_tpu.ops.family_estep import estep_engine
         from mimo_tpu.models.mixture import (
-            BayesianMixture, _pallas_xts, _resolve_backend)
+            _fused_block_size, _resolve_backend)
         data = self._tx_data(data)
         key = _as_key(key)
         mm, kk = self.cluster_size, self.mixture_size
@@ -834,19 +738,17 @@ class BayesianMixtureOfMixtures:
         if spec.theta_plugin is None:
             raise NotImplementedError(
                 'no fused plug-in spec for this family; use fit_map')
-        n = data[0].shape[0]
-        use_pallas = _resolve_backend(backend, spec, mesh)
-        block_size = BayesianMixture._fused_block_size(
-            self, spec, n, mesh, use_pallas, block_size, 'fit_map')
+        engine = _resolve_backend(backend, spec, self.components_prior)
+        block_size = _fused_block_size(data[0].shape[0], mesh, engine,
+                                       block_size, 'fit_map')
         fn = self._jit('map_fused', maxiter=maxiter, block_size=block_size,
-                       mesh=mesh, pallas=use_pallas)
-        estep = BayesianMixture._fused_plugin_estep(
-            self, spec, mesh, use_pallas, block_size)
+                       mesh=mesh, engine=engine)
+        estep = estep_engine(spec._replace(theta=spec.theta_plugin), engine,
+                             block_size, mesh)
 
         def run(data, key):
             n = data[0].shape[0]
             dtype = data[0].dtype
-            xts = _pallas_xts(data, block_size, mesh) if use_pallas else None
             # random two-level responsibilities -> posterior init (as
             # fit_vi_fused)
             r = jax.random.uniform(key, (n, mm), dtype=dtype,
@@ -870,7 +772,7 @@ class BayesianMixtureOfMixtures:
                 log_pi = (jnp.log(jnp.clip(st.outer_gating.mode(),
                                            1e-37, None))[:, None]
                           + lp_in).reshape(-1).astype(dtype)
-                res = estep(params, log_pi, data, xts, n, dtype)
+                res = estep(params, log_pi, data)
                 counts, stats = self._split_flat(res)
                 comps, gatings = jax.vmap(
                     lambda pc, pg, s, c: (self.family.update(pc, s),
@@ -1096,25 +998,11 @@ class BayesianMixtureOfMixtures:
             jax.vmap(lambda g: g.mean())(state.inner_gating), 1e-37, None))
         return log_out[:, None] + log_in
 
-    def log_predictive(self, state: HMixState, data, dist='studentt',
-                       backend='auto', mesh=None):
+    def log_predictive(self, state: HMixState, data, dist='studentt'):
         """Marginal posterior-predictive log density, (N,): logsumexp over
-        all (M, K) of mixture weights x component predictive.
-
-        `backend`/'mesh': as in BayesianMixture.log_predictive — nested
-        full-covariance Gaussian mixtures flatten the (M, K) posterior to
-        M*K components and ride the same fused serving kernel on TPU."""
+        all (M, K) of mixture weights x component predictive (the dense
+        path, as BayesianMixture.log_predictive)."""
         data = data if isinstance(data, tuple) else (data,)
-        from mimo_tpu.distributions.niw import NIW
-        if (backend == 'auto' and isinstance(state.components, NIW)
-                and (jax.default_backend() == 'tpu' or mesh is not None)):
-            from mimo_tpu.ops.pallas_predict import gauss_predictive_pallas
-            flat = jax.tree.map(
-                lambda a: a.reshape((-1,) + a.shape[2:]), state.components)
-            out = gauss_predictive_pallas(
-                flat, self._log_mix_weights(state).reshape(-1), data[0],
-                dist=dist, mesh=mesh)
-            return out.astype(data[0].dtype)
         fn = (self.family.log_predictive if dist == 'studentt'
               else self.family.log_predictive_gaussian)
         log_p = jax.vmap(lambda post: fn(post, data))(
@@ -1162,74 +1050,16 @@ class BayesianMixtureOfMixtures:
         return jnp.moveaxis(mus, 0, 1), jnp.moveaxis(covs, 0, 1)
 
     def predict(self, state: HMixState, x, y=None, prediction='average',
-                dist='gaussian', incremental=False, backend='auto',
-                mesh=None):
+                dist='gaussian', incremental=False):
         """Two-level posterior-predictive regression (hilr.py:573-609):
         mode picks the argmax over all M*K experts, average moment-matches
-        the full two-level mixture. Returns (mean, var, std, nlpd).
-
-        `backend`: 'auto' routes p=1 studentt configurations ('average'
-        AND 'mode') through the fused ILR serving kernel on TPU
-        (ops/pallas_predict.py) with the (M, K) posterior flattened to
-        M*K experts — the two-level weight softmax is exactly the flat
-        softmax over log mix-weights + basis logpdf; 'xla' forces the
-        dense path; 'pallas' REQUIRES the kernel path (raising when the
-        config can't ride it), running in interpret mode off-TPU so the
-        model-level glue is testable on CPU. With `mesh` the kernel
-        serves data-parallel per-device under shard_map."""
+        the full two-level mixture. Returns (mean, var, std, nlpd)."""
         if self.kind != 'ilr':
             raise ValueError('predict() is for make_ilr models; use '
                              'log_predictive for density models')
-        if backend not in ('auto', 'xla', 'pallas'):
-            raise ValueError(f'unknown backend: {backend!r}')
         from mimo_tpu.models.ilr import BayesianILR
         xx = x if self.input_transform is None \
             else self.input_transform.transform(x)
-        basis_post, models_post = state.components
-        fused_ok = dist == 'studentt'
-        if backend == 'pallas' and not fused_ok:
-            raise NotImplementedError(
-                'fused serving needs studentt predictives; use '
-                "backend='xla' (dense) for this config")
-        if fused_ok and (backend == 'pallas' or
-                         (backend == 'auto'
-                          and (jax.default_backend() == 'tpu'
-                               or mesh is not None))):
-            flat = jax.tree.map(
-                lambda a: a.reshape((-1,) + a.shape[2:]),
-                (basis_post, models_post))
-            yy = None
-            if y is not None:
-                yy = y if self.output_transform is None \
-                    else self.output_transform.transform(y)
-            dtype = xx.dtype
-            log_w = self._log_mix_weights(state).reshape(-1)
-            if models_post.M.shape[-2] == 1:
-                from mimo_tpu.ops.pallas_predict import ilr_predict_pallas
-                mu1, var1, nlpd = ilr_predict_pallas(
-                    flat[0], flat[1], log_w, xx, yy, self.affine,
-                    prediction=prediction, mesh=mesh)
-                mu = mu1[:, None].astype(dtype)
-                var = var1[:, None].astype(dtype)
-            else:
-                from mimo_tpu.ops.pallas_predict import (
-                    _ilr_p_predict_pallas)
-                mu, var, nlpd = _ilr_p_predict_pallas(
-                    flat[0], flat[1], log_w, xx, yy, self.affine,
-                    None, prediction, mesh=mesh)
-                mu = mu.astype(dtype)
-                var = var.astype(dtype)
-            if nlpd is not None:
-                nlpd = nlpd.astype(dtype)
-                if self.output_transform is not None:
-                    nlpd = nlpd + jnp.sum(
-                        jnp.log(self.output_transform.scale))
-            if self.output_transform is not None:
-                mu = self.output_transform.inverse_transform(mu)
-                var = var * jnp.square(self.output_transform.scale)
-            if incremental:
-                mu = mu + x[:, :mu.shape[-1]]
-            return mu, var, jnp.sqrt(var), nlpd
         n = x.shape[0]
         weights = self.predictive_weights(state, xx, dist)   # (N, M, K)
         mus, covs = self.predictive_moments(state, xx, dist)

@@ -1,7 +1,7 @@
 """Infinite mixture of linear regressions (ILR) — Bayesian mixture of
 linear-Gaussian experts with Gaussian basis functions.
 
-TPU-native re-design of mimo/mixtures/ilr.py: the joint density
+JAX re-design of mimo/mixtures/ilr.py: the joint density
 p(x, y, z=k) = gating(k) * basis_k(x) * model_k(y | x) is a product
 conjugate family, so all four inference engines come for free from the
 generic `BayesianMixture`; this class adds the prediction machinery
@@ -282,67 +282,14 @@ class BayesianILR(BayesianMixture):
         return fn(models_post, xa, y)
 
     def predict(self, state: MFState, x, y=None, prediction='average',
-                dist='studentt', incremental=False, backend='auto',
-                mesh=None):
+                dist='studentt', incremental=False):
         """Posterior-predictive regression (ilr.py:374-430).
 
         Returns (mean, var_diag, std, nlpd) with nlpd None unless y given.
         Handles the optional standardization round-trip. `incremental`
         adds the input back onto the prediction (delta-dynamics models,
-        ilr.py:411-413).
-
-        `backend`: 'auto' routes every studentt configuration — full
-        MNW / diag MNG / tied-affine experts, hier-basis, p=1 and p>1
-        outputs, 'average' AND 'mode' — through the fused Mosaic
-        serving kernels on TPU (ops/pallas_predict.py): weights, moment
-        matching, and NLPD in one pass, no (N, K) intermediates; 'xla'
-        forces the dense path; 'pallas' REQUIRES the kernel path
-        (raising for gaussian predictives, which stay dense), running
-        it in interpret mode off-TPU so the model-level glue is
-        testable on CPU. With `mesh` the kernel serves data-parallel
-        per-device under shard_map (no collective)."""
-        if backend not in ('auto', 'xla', 'pallas'):
-            raise ValueError(f'unknown backend: {backend!r}')
-        fused_ok = dist == 'studentt'
-        if backend == 'pallas' and not fused_ok:
-            raise NotImplementedError(
-                'fused serving needs studentt predictives; use '
-                "backend='xla' (dense) for this config")
+        ilr.py:411-413)."""
         xx = self._tx(x)
-        if fused_ok and (backend == 'pallas' or
-                         (backend == 'auto'
-                          and (jax.default_backend() == 'tpu'
-                               or mesh is not None))):
-            basis_post, models_post = state.components
-            yy = self._ty(y) if y is not None else None
-            dtype = xx.dtype
-            log_w = self.predictive_log_weights(state)
-            if self.output_dim == 1:
-                from mimo_tpu.ops.pallas_predict import ilr_predict_pallas
-                mu1, var1, nlpd = ilr_predict_pallas(
-                    basis_post, models_post, log_w, xx, yy, self.affine,
-                    prediction=prediction, mesh=mesh)
-                mu = mu1[:, None].astype(dtype)
-                var = var1[:, None].astype(dtype)
-            else:
-                from mimo_tpu.ops.pallas_predict import (
-                    _ilr_p_predict_pallas)
-                mu, var, nlpd = _ilr_p_predict_pallas(
-                    basis_post, models_post, log_w, xx, yy, self.affine,
-                    None, prediction, mesh=mesh)
-                mu = mu.astype(dtype)
-                var = var.astype(dtype)
-            if nlpd is not None:
-                nlpd = nlpd.astype(dtype)
-                if self.output_transform is not None:
-                    nlpd = nlpd + jnp.sum(
-                        jnp.log(self.output_transform.scale))
-            if self.output_transform is not None:
-                mu = self.output_transform.inverse_transform(mu)
-                var = var * jnp.square(self.output_transform.scale)
-            if incremental:
-                mu = mu + x[:, :mu.shape[-1]]
-            return mu, var, jnp.sqrt(var), nlpd
         weights = self.predictive_weights(state, xx, dist)
         mus, covars = self.predictive_moments(state, xx, dist)
 

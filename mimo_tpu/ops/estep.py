@@ -9,7 +9,7 @@ reference) is, per data block B:
     vlb   += sum(logsumexp(logp))               (collapsed data+label+entropy
                                                  terms: sum_n lse_k logp_nk)
 The blockwise form caps live memory at B*(d^2 + K) regardless of N — the
-TPU-native fix for the reference's N x d x d `fold=False` hazard
+device-side fix for the reference's N x d x d `fold=False` hazard
 (gaussian.py:474-485) and its 4 GB K x N responsibility matrix at N=1e7.
 
 Identity used for the ELBO accumulation: with r = softmax(l),
@@ -36,15 +36,14 @@ class EStepResult(NamedTuple):
     counts: jax.Array   # (K,) sum_n resp_nk  (== stats.n1; kept for clarity)
 
 
-def pick_block_size(n, target=131072, multiple=1):
-    """Largest divisor of n that is <= target and a multiple of `multiple`
-    (Mosaic lane tiling needs multiples of 128; XLA scan blocks are free).
-    Falls back to n itself when the best divisor is degenerate — a tiny
-    divisor (e.g. 1 for prime n) would turn the blockwise scan into an
-    n-step sequential loop, far worse than one big block."""
-    for b in range(min(n, target), multiple - 1, -1):
-        if n % b == 0 and b % multiple == 0:
-            if b >= min(n, max(multiple, target // 64)):
+def pick_block_size(n, target=131072):
+    """Largest divisor of n that is <= target. Falls back to n itself when
+    the best divisor is degenerate — a tiny divisor (e.g. 1 for prime n)
+    would turn the blockwise scan into an n-step sequential loop, far
+    worse than one big block."""
+    for b in range(min(n, target), 0, -1):
+        if n % b == 0:
+            if b >= min(n, target // 64):
                 return b
             break
     return n
@@ -142,8 +141,9 @@ def gmm_gibbs_blockwise(key, params_nat, x, block_size=65536):
 
     Args:
       key: PRNG key for this sweep.
-      params_nat: (h1 (K, d), h2f (K, d*d), c (K, 1)) plug-in natural form
-        (pallas_gibbs.gauss_plugin_nat).
+      params_nat: (h1 (K, d), h2f (K, d*d), c (K, 1)) plug-in natural form:
+        h1 = Lambda mu, h2f = -Lambda / 2 flattened, c = the log-density
+        constant plus log pi.
       x: (N, d), N a multiple of block_size.
     Returns: (labels (N,) int32, EStepResult with one-hot stats, lse=0).
     """

@@ -24,7 +24,7 @@ concatenate feature maps and theta blocks.
 This subsumes ops/estep.py's GMM-specific kernels and extends the fused
 path to mixtures of linear experts and diagonal variants (the reference's
 hot loops bayesian.py:287-301, 933-947 + gmm.py:256-259, ilr.py:191-194
-collapsed into two MXU ops).
+collapsed into two matmuls).
 """
 
 from typing import Any, Callable, NamedTuple
@@ -48,35 +48,12 @@ class EStepSpec(NamedTuple):
     # plug-in natural params for Gibbs label sweeps:
     # likelihood params -> (K, m) with log p(data|params_k) = t(data)·row_k
     theta_plugin: Any = None
-    # transposed feature assembler for the Pallas kernels: a pure jnp
-    # function mapping a tuple of (d_i, B) data blocks to the (m, B)
-    # feature matrix F with F[j, n] == features(data)[n, j] — traced
-    # INSIDE the Mosaic kernel, so F lives in registers and the N x m
-    # feature tensor never exists in HBM. None = kernel path unavailable.
-    features_t: Any = None
-    # True -> the kernels run their dots with F in a bf16 hi+lo split
-    # (like theta always is). Needed by linear-expert families: their
-    # M-step cancels yyT - M'K'M' down to the per-point noise, so once
-    # the posterior noise precision grows past ~1/eps_bf16 of the yy
-    # scale, single-pass bf16 rounding of the second-moment feature rows
-    # destabilizes the fit (measured: nested ILR NaNs by sweep ~15 on
-    # TPU; split-F converges to the XLA trace). Gaussian families keep
-    # the cheaper single-pass F at small d (scripts/precision_study.py,
-    # d=2/d=8 per-step parity ~1e-5) but hit the same cancellation at
-    # large d — the per-point logp error ~2^-9 sum_j |theta_j f_j| grows
-    # with d^2 terms of magnitude ~x^2·Lambda (measured d=32/K=256:
-    # 4-9%% per-step stats drift near convergence, NaN trajectories;
-    # split-F restores XLA tracking at ~0.6x the single-pass rate) —
-    # so the models flip this on for dim >= GAUSS_SPLIT_F_DIM.
-    hi_lo_features: bool = False
-
-
-# Gaussian-family dimension at/above which the models request the F
-# hi/lo split (see EStepSpec.hi_lo_features). Measured on TPU
-# (BENCH_NOTES round 3): d=8/K=128 is stable single-pass over 300 VI
-# iters (tail rel 7.8e-5 vs XLA); d=16/K=128 single-pass NaNs by iter
-# 50 while split-F tracks XLA at 1.4e-4 — the cut is exactly here.
-GAUSS_SPLIT_F_DIM = 16
+    # kernel-side feature assembler (ops/triton_estep.py): maps a tuple
+    # (one entry per data array) of lists of (T,) column vectors to the
+    # list of m (T,) feature rows, rows[j] == features(data)[:, j] — traced
+    # INSIDE the kernel, so the N x m feature tensor never exists in HBM.
+    # None = kernel path unavailable.
+    feature_rows: Any = None
 
 
 class FusedEStep(NamedTuple):
@@ -90,50 +67,46 @@ def _outer(a, b):
     return (a[:, :, None] * b[:, None, :]).reshape(n, -1)
 
 
-# -- transposed (kernel-side) feature assemblers ------------------------------
-# Row ordering MUST mirror the spec's `features` exactly. The assemblers
-# build F as a jnp.concatenate of REGISTER values — staging stripes
-# through VMEM scratch stores serialized the kernel 27x (BENCH_NOTES.md).
+# -- kernel-side feature assemblers -------------------------------------------
+# Row order MUST mirror the spec's `features` exactly. Each returns a list
+# of (T,) rows: Triton lowers no general concatenate, and a list lets the
+# kernel consume each row as it is made.
 
-def _rows_outer(at, bt):
-    """Transposed _outer: rows i*db+j = a_i b_j from (da, B), (db, B)."""
-    return [at[i:i + 1] * bt for i in range(at.shape[0])]
-
-
-def gauss_features_t(ts):
-    (xt,) = ts
-    one = jnp.ones((1, xt.shape[1]), xt.dtype)
-    return jnp.concatenate([one, xt] + _rows_outer(xt, xt), axis=0)
+def _rows_outer(a, b):
+    """Row-list _outer: row i*len(b)+j = a_i b_j."""
+    return [ai * bj for ai in a for bj in b]
 
 
-def diag_gauss_features_t(ts):
-    (xt,) = ts
-    one = jnp.ones((1, xt.shape[1]), xt.dtype)
-    return jnp.concatenate([one, xt, xt * xt], axis=0)
+def gauss_feature_rows(cols):
+    (xs,) = cols
+    return [jnp.ones_like(xs[0])] + list(xs) + _rows_outer(xs, xs)
 
 
-def linear_features_t(affine):
-    def assemble(ts):
-        xt, yt = ts
-        one = jnp.ones((1, xt.shape[1]), xt.dtype)
-        xta = jnp.concatenate([xt, one], axis=0) if affine else xt
-        return jnp.concatenate(
-            [one] + _rows_outer(yt, xta) + _rows_outer(xta, xta)
-            + _rows_outer(yt, yt), axis=0)
+def diag_gauss_feature_rows(cols):
+    (xs,) = cols
+    return [jnp.ones_like(xs[0])] + list(xs) + [x * x for x in xs]
+
+
+def linear_feature_rows(affine):
+    def assemble(cols):
+        xs, ys = cols
+        one = jnp.ones_like(xs[0])
+        xa = list(xs) + [one] if affine else list(xs)
+        return ([one] + _rows_outer(ys, xa) + _rows_outer(xa, xa)
+                + _rows_outer(ys, ys))
     return assemble
 
 
-def _product_features_t(specs, data_slices):
-    members = [s.features_t for s in specs]
+def _product_feature_rows(specs, data_slices):
+    members = [s.feature_rows for s in specs]
     if any(m is None for m in members):
         return None
 
-    def assemble(ts):
-        blocks = [m(tuple(ts[i] for i in sl))
+    def assemble(cols):
+        blocks = [m(tuple(cols[i] for i in sl))
                   for m, sl in zip(members, data_slices)]
         # drop duplicate constant rows beyond the first (as in features)
-        blocks = [blocks[0]] + [b[1:] for b in blocks[1:]]
-        return jnp.concatenate(blocks, axis=0)
+        return blocks[0] + [r for b in blocks[1:] for r in b[1:]]
     return assemble
 
 
@@ -164,7 +137,7 @@ def gaussian_spec() -> EStepSpec:
             [c[:, None], lmu, -0.5 * lm.reshape(-1, d * d)], axis=-1)
 
     return EStepSpec(features, theta, _unpack_gauss, theta_plugin,
-                     gauss_features_t)
+                     gauss_feature_rows)
 
 
 def _unpack_gauss(acc):
@@ -204,7 +177,7 @@ def hier_gaussian_spec() -> EStepSpec:
         return jnp.concatenate([c[:, None], h1, h2], axis=-1)
 
     return EStepSpec(g.features, theta, g.unpack, g.theta_plugin,
-                     gauss_features_t)
+                     gauss_feature_rows)
 
 
 # -- diagonal Gaussian | NG --------------------------------------------------
@@ -241,7 +214,7 @@ def diag_gaussian_spec() -> EStepSpec:
         return jnp.concatenate([c[:, None], l * mu, -0.5 * l], axis=-1)
 
     return EStepSpec(features, theta, unpack, theta_plugin,
-                     diag_gauss_features_t)
+                     diag_gauss_feature_rows)
 
 
 # -- linear expert | MNW -----------------------------------------------------
@@ -291,7 +264,7 @@ def linear_spec(affine: bool = True, p_dim: int = None,
              -0.5 * lm.reshape(-1, pd * pd)], axis=-1)
 
     return EStepSpec(features, theta, unpack, theta_plugin,
-                     linear_features_t(affine), hi_lo_features=True)
+                     linear_feature_rows(affine))
 
 
 def diag_linear_spec(affine: bool = True, p_dim: int = None,
@@ -331,7 +304,7 @@ def diag_linear_spec(affine: bool = True, p_dim: int = None,
              -0.5 * l_mat.reshape(-1, pd * pd)], axis=-1)
 
     return EStepSpec(base.features, theta, base.unpack, theta_plugin,
-                     base.features_t, hi_lo_features=base.hi_lo_features)
+                     base.feature_rows)
 
 
 # -- products (ILR: basis(x) x expert(y|x)) ----------------------------------
@@ -377,8 +350,7 @@ def product_spec(specs, data_slices, widths) -> EStepSpec:
         return jnp.concatenate(blocks, axis=-1)
 
     return EStepSpec(features, theta, unpack, theta_plugin,
-                     _product_features_t(specs, data_slices),
-                     hi_lo_features=any(s.hi_lo_features for s in specs))
+                     _product_feature_rows(specs, data_slices))
 
 
 def gauss_width(d):
@@ -415,7 +387,7 @@ def tied_affine_spec(input_dim, output_dim) -> EStepSpec:
             yyT=lg.yyT, n=lg.n)
 
     return EStepSpec(base.features, theta, unpack, base.theta_plugin,
-                     base.features_t, hi_lo_features=base.hi_lo_features)
+                     base.feature_rows)
 
 
 def ilr_spec(input_dim, output_dim, affine=True, diag_basis=False,
@@ -491,7 +463,7 @@ def fused_estep_sharded(spec: EStepSpec, post, log_pi, data, block_size,
     """Multi-chip fused E-step via shard_map over the mesh's data axis:
     every device scans its LOCAL shard's blocks (same two-matmul body as
     fused_estep_blockwise), then one psum of the (K, m) accumulator + lse
-    rides ICI/DCN. The collective payload is K*m floats, independent of N
+    crosses the mesh. The collective payload is K*m floats, independent of N
     — the scaling-book recipe for statistics that are additive over data
     (SURVEY.md §5 'long-context analogue').
 
@@ -617,3 +589,45 @@ def fused_gibbs_blockwise(spec: EStepSpec, key, params, log_pi, data,
     return labels.reshape(n), FusedEStep(
         stats=spec.unpack(acc), lse=jnp.zeros((), data[0].dtype),
         counts=acc[:, 0])
+
+
+# -- engine dispatch -----------------------------------------------------------
+
+def estep_engine(spec: EStepSpec, engine, block_size=None, mesh=None):
+    """Return estep(post, log_pi, data) -> FusedEStep on `engine`: 'xla'
+    (the blockwise scan above; per-device N a multiple of block_size),
+    'pallas' (the fused GPU kernel, ops/triton_estep.py; any N) or
+    'interpret' (that kernel through the Pallas interpreter, for tests on
+    machines without a GPU). With `mesh` the work is sharded over its
+    'data' axis and one (K, m) psum crosses the mesh."""
+    if engine == 'xla':
+        if mesh is None:
+            return lambda post, log_pi, data: fused_estep_blockwise(
+                spec, post, log_pi, data, block_size)
+        return lambda post, log_pi, data: fused_estep_sharded(
+            spec, post, log_pi, data, block_size, mesh)
+    from mimo_tpu.ops import triton_estep as te
+    interpret = engine == 'interpret'
+    if mesh is None:
+        return lambda post, log_pi, data: te.fused_estep_pallas(
+            spec, post, log_pi, data, interpret=interpret)
+    return lambda post, log_pi, data: te.fused_estep_pallas_sharded(
+        spec, post, log_pi, data, mesh, interpret=interpret)
+
+
+def gibbs_engine(spec: EStepSpec, engine, block_size=None, mesh=None):
+    """Return sweep(key, params, log_pi, data) -> (labels (N,) int32,
+    FusedEStep with one-hot statistics) on `engine` (see estep_engine)."""
+    if engine == 'xla':
+        if mesh is None:
+            return lambda key, params, log_pi, data: fused_gibbs_blockwise(
+                spec, key, params, log_pi, data, block_size)
+        return lambda key, params, log_pi, data: fused_gibbs_sharded(
+            spec, key, params, log_pi, data, block_size, mesh)
+    from mimo_tpu.ops import triton_estep as te
+    interpret = engine == 'interpret'
+    if mesh is None:
+        return lambda key, params, log_pi, data: te.fused_gibbs_pallas(
+            spec, key, params, log_pi, data, interpret=interpret)
+    return lambda key, params, log_pi, data: te.fused_gibbs_pallas_sharded(
+        spec, key, params, log_pi, data, mesh, interpret=interpret)

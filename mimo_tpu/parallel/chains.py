@@ -1,7 +1,7 @@
 """Chain/restart parallelism: many independent inference runs as one
 vmapped on-device program, optionally sharded over the mesh 'chain' axis.
 
-TPU-native replacement of the reference's only parallelism — a joblib/loky
+JAX replacement of the reference's only parallelism — a joblib/loky
 process pool over 24 independent restarts (evaluate_sinc_parallel.py:
 120-132) and the best-of-5 ELBO model selection loop
 (examples/gmm/sine/svi_gmm.py:57-67). Here:

@@ -2,9 +2,8 @@
 size over `fit_chains` outputs.
 
 The reference's only multi-run diagnostic is best-of-N ELBO selection
-(examples/gmm/sine/svi_gmm.py:57-67). `fit_chains` makes 16 restarts
-essentially free (BENCH_NOTES: 16 vmapped kernel restarts cost ~1 fit),
-so proper diagnostics come with them:
+(examples/gmm/sine/svi_gmm.py:57-67). `fit_chains` runs many restarts
+as one vmapped program, so proper diagnostics come with them:
 
     states, lls = fit_chains(m, 'fit_gibbs', x, keys,
                              maxiter=500, track_loglik=True)

@@ -25,13 +25,15 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
     """Multi-host bring-up: one call per host before any jax use.
 
-    Wraps `jax.distributed.initialize` (auto-detected on TPU pods — all
-    arguments optional there). After this, `jax.devices()` is the GLOBAL
-    device list, so `make_mesh()` spans every host: the 'data' axis rides
-    ICI within a slice and DCN across slices, and the psum'd statistics
-    (fixed K*m floats) are the only cross-host traffic per sweep. The
-    reference has no distributed backend at all (SURVEY.md §2.6); this is
-    the whole of ours — no NCCL/MPI, just XLA collectives.
+    Wraps `jax.distributed.initialize`. On GPU hosts nothing announces
+    the cluster, so pass `coordinator_address` ('host:port' of process
+    0), `num_processes` and `process_id` explicitly. After this,
+    `jax.devices()` is the GLOBAL device list, so `make_mesh()` spans
+    every host: XLA hands the psum'd statistics (fixed K*m floats, the
+    only cross-device traffic per sweep) to NCCL, over NVLink between the
+    cards of a host and the network between hosts. The reference has no
+    distributed backend at all (SURVEY.md §2.6); this is the whole of
+    ours — no hand-written collectives.
 
     No-op if already initialized (safe to call from every entry point);
     a genuinely failed bring-up (unreachable coordinator, backend already

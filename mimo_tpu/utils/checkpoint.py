@@ -18,15 +18,15 @@ def save_state(path, state):
     """Save any pytree of arrays (MFState, GibbsState, priors, ...)."""
     try:
         import orbax.checkpoint as ocp
-        with ocp.StandardCheckpointer() as ckptr:
-            ckptr.save(os.path.abspath(path), state, force=True)
-        return path
-    except Exception:
-        # fallback: flat npz (single-host only)
+    except ImportError:
+        # orbax is optional: flat npz (single-host only)
         leaves, treedef = jax.tree.flatten(state)
         np.savez(path if path.endswith('.npz') else path + '.npz',
                  *[np.asarray(l) for l in leaves])
         return path
+    with ocp.StandardCheckpointer() as ckptr:
+        ckptr.save(os.path.abspath(path), state, force=True)
+    return path
 
 
 def load_state(path, like):
@@ -34,15 +34,15 @@ def load_state(path, like):
     (and shapes/dtypes for orbax)."""
     try:
         import orbax.checkpoint as ocp
-        with ocp.StandardCheckpointer() as ckptr:
-            target = jax.tree.map(ocp.utils.to_shape_dtype_struct, like) \
-                if hasattr(ocp.utils, 'to_shape_dtype_struct') else like
-            return ckptr.restore(os.path.abspath(path), target)
-    except Exception:
+    except ImportError:
         npz = np.load(path if path.endswith('.npz') else path + '.npz')
         leaves = [npz[k] for k in npz.files]
         treedef = jax.tree.structure(like)
         return jax.tree.unflatten(treedef, leaves)
+    with ocp.StandardCheckpointer() as ckptr:
+        target = jax.tree.map(ocp.utils.to_shape_dtype_struct, like) \
+            if hasattr(ocp.utils, 'to_shape_dtype_struct') else like
+        return ckptr.restore(os.path.abspath(path), target)
 
 
 def exists(path):

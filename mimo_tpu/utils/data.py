@@ -1,6 +1,6 @@
 """Data helpers: one-hot labels, minibatch sampling, standardization.
 
-TPU-native counterpart of /root/reference/mimo/utils/data.py. The
+JAX counterpart of the reference's mimo/utils/data.py. The
 reference's `StandardScaler` (sklearn) becomes a pure pytree transform so
 it can live inside jitted prediction paths; its `batches` generator (one
 random subset per epoch, data.py:9-12) becomes an on-device index draw.

@@ -1,6 +1,6 @@
 """Batched PSD linear algebra helpers.
 
-TPU-native counterparts of the reference's scalar SciPy/LAPACK helpers
+JAX counterparts of the reference's scalar SciPy/LAPACK helpers
 (/root/reference/mimo/utils/matrix.py). Everything here broadcasts over
 arbitrary leading batch axes (typically the K component axis) and is safe
 under `jit`/`vmap`/`pjit`.
@@ -10,14 +10,15 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.special import digamma, gammaln
 
-# TPU matmuls at Precision.DEFAULT run bfloat16 passes; sufficient-statistic
-# accumulation and the conjugate-update cancellations need full float32.
-# Everything numerically critical in the package routes through these.
+# At Precision.DEFAULT the GPU may run float32 matmuls in TF32;
+# sufficient-statistic accumulation and the conjugate-update cancellations
+# need full float32. Everything numerically critical in the package routes
+# through these.
 PRECISION = jax.lax.Precision.HIGHEST
 
 
 def mm(a, b):
-    """matmul at full float32 precision (6-pass on TPU MXU)."""
+    """matmul at full float32 precision (no TF32)."""
     return jnp.matmul(a, b, precision=PRECISION)
 
 
@@ -161,10 +162,10 @@ def quad_form(x, a, m=None):
       a: (K, d, d) PSD matrices.
       m: optional (K, d) centers.
 
-    Computed in a MXU-friendly way: the (N, d^2) "squared feature" matrix
+    Computed GEMM-first: the (N, d^2) "squared feature" matrix
     xx is built ONCE (independent of K) and contracted against the flattened
     matrices with a single matmul, instead of materializing an (N, K, d)
-    intermediate. This is the TPU-native replacement of the reference's
+    intermediate. This is the JAX replacement of the reference's
     `fold=False` N x d x d statistics path (gaussian.py:474-485) and the
     einsum hot loop 'kd,kdl,nl->kn' (gaussian.py:510-523).
     """

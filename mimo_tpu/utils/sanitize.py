@@ -1,6 +1,6 @@
 """Loud non-finite detection for the production engines.
 
-Motivation (BENCH_NOTES round-4 Geweke findings): a near-zero sampled
+Motivation (DESIGN.md section 10, the Geweke findings): a near-zero sampled
 prior precision overflowed yyT at f32 and the chain NaN-absorbed from
 draw 19,407 — SILENTLY: the final state carried NaNs but nothing
 reported where they entered. `jax_debug_nans` catches this but recompiles

@@ -1,10 +1,10 @@
 """Vectorized log-pdfs and on-device categorical sampling.
 
-TPU-native counterpart of /root/reference/mimo/utils/stats.py. Layout
+JAX counterpart of the reference's mimo/utils/stats.py. Layout
 convention throughout mimo_tpu: per-point-per-component matrices are
-(N, K) with the component axis LAST (the reference uses (K, N)); on TPU the
-trailing axis maps to vector lanes, and (N, K) is the natural output of the
-feature-matmul E-step.
+(N, K) with the component axis LAST (the reference uses (K, N)): the
+trailing axis is the contiguous one, and (N, K) is the natural output of
+the feature-matmul E-step.
 """
 
 import jax

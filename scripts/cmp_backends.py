@@ -1,12 +1,15 @@
+"""VI and Gibbs rates at N=1e7, K=50, d=2 on the XLA engine and on the
+fused GPU kernel (backend='pallas'); run on a machine with a GPU."""
 import sys, os, time
 _repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _repo)
 import jax
-jax.config.update('jax_compilation_cache_dir', os.path.join(_repo, '.jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 import jax.numpy as jnp
 from mimo_tpu.models.gmm import BayesianGMM
 from mimo_tpu.distributions.niw import GaussParams
+from mimo_tpu.utils.cache import use_compile_cache
+
+use_compile_cache()
 
 N, K, D, ITERS = 10_000_000, 50, 2, 100
 key = jax.random.PRNGKey(0)

@@ -1,15 +1,22 @@
-"""Root-cause diagnostic for test_hmix_ilr_backend_pallas_fit_matches_xla:
-is the pallas-vs-xla ELBO trace divergence (max rel ~6e-4 by sweep 12) a
-per-sweep kernel error (hi_lo_features drift) or chaotic amplification of
-a benign ~1e-5 per-step difference through the VI iteration?
+"""Diagnostic for test_hmix_ilr_backend_pallas_fit_matches_xla: is a
+kernel-vs-xla ELBO trace divergence on nested linear experts a per-sweep
+kernel error or chaotic amplification of a benign per-step summation-order
+difference through the VI iteration?
 
 Measures, at the XLA trajectory's state after i sweeps:
   - one-step E-step divergence: fused_estep_pallas vs fused_estep_blockwise
     (rel err of lse, counts, stats) from the SAME state;
   - the running trace divergence |v_p - v_x| / |v_x| per sweep.
+
+Runs the kernel through the Pallas interpreter on the CPU; pass --gpu to
+run the compiled kernel on a GPU.
 """
+import sys
 import os
-os.environ.setdefault('JAX_PLATFORMS', 'cpu')
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+GPU = '--gpu' in sys.argv
+if not GPU:
+    os.environ.setdefault('JAX_PLATFORMS', 'cpu')
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +25,9 @@ jax.config.update('jax_enable_x64', True)
 
 from mimo_tpu.models.hmix import BayesianMixtureOfMixtures
 from mimo_tpu.ops.family_estep import fused_estep_blockwise
-from mimo_tpu.ops.pallas_estep import fused_estep_pallas
+from mimo_tpu.ops.triton_estep import fused_estep_pallas
+
+ENGINE = 'pallas' if GPU else 'interpret'
 
 rng = np.random.default_rng(3)
 n = 1024
@@ -33,7 +42,7 @@ m = BayesianMixtureOfMixtures.make_ilr(
     kappa=0.05, dtype=jnp.float32)
 
 v_p = np.asarray(m.fit_vi_fused((x, y), key=1, maxiter=12,
-                                backend='pallas')[1])
+                                backend=ENGINE)[1])
 v_x = np.asarray(m.fit_vi_fused((x, y), key=1, maxiter=12,
                                 backend='xla')[1])
 print('trace rel divergence per sweep:')
@@ -43,8 +52,6 @@ for i, (a, b) in enumerate(zip(v_p, v_x)):
 spec = m._flat_spec()
 data = (x, y)
 block = 512
-xts = tuple(jnp.pad(a.astype(jnp.float32).T,
-                    ((0, 0), (0, (-n) % 384))) for a in data)
 
 print('\none-step E-step divergence at the XLA state after i sweeps:')
 for i in [1, 2, 4, 8, 12]:
@@ -52,7 +59,8 @@ for i in [1, 2, 4, 8, 12]:
     lp_in = jax.vmap(lambda g: g.expected_log_pi())(st.inner_gating)
     lp = (st.outer_gating.expected_log_pi()[:, None] + lp_in).reshape(-1)
     ref = fused_estep_blockwise(spec, st.components, lp, data, block)
-    got = fused_estep_pallas(spec, st.components, lp, xts, 384, n)
+    got = fused_estep_pallas(spec, st.components, lp, data,
+                             interpret=not GPU)
     errs = jax.tree.map(
         lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))
                                   / (np.abs(np.asarray(b)) + 1e-30))),

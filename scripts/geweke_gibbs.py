@@ -36,12 +36,12 @@ code path production runs.
 
 z = (mean_a - mean_b) / sqrt(se_a^2 + se_b^2), with se_b from batch
 means (the chain autocorrelates). |z| > ~4 on any statistic indicates a
-transition bug; healthy runs sit |z| < 3 (see the committed BENCH_NOTES
-section for measured values, CPU f64 + TPU f32 Mosaic path).
+transition bug; healthy runs sit |z| < 3 (DESIGN.md, "Geweke
+certification", keeps the measured values).
 
 Usage:
     python scripts/geweke_gibbs.py                    # CPU f64 oracle
-    python scripts/geweke_gibbs.py --backend pallas   # TPU f32 Mosaic
+    python scripts/geweke_gibbs.py --backend pallas   # GPU f32 kernel
     python scripts/geweke_gibbs.py --family tied-affine --draws 40000
 """
 
@@ -57,8 +57,8 @@ FAMILIES = ['gmm', 'ilr', 'diag', 'tied', 'tied-diag', 'hier',
 
 
 def _arcsinh_moments(arrs):
-    """Variance-stabilized data moments (see BENCH_NOTES round-4 Geweke
-    findings: prior-predictive tails are Student-t-like; raw sample
+    """Variance-stabilized data moments (DESIGN.md, "Geweke
+    certification": prior-predictive tails are Student-t-like; raw sample
     variances break the CLT z and can overflow f32; arcsinh is monotone
     and applied identically to both samplers)."""
     import jax.numpy as jnp
@@ -80,7 +80,7 @@ def build_mixture_config(args, dtype):
     init/generate/transition/stats_of/names."""
     import jax
     import jax.numpy as jnp
-    from mimo_tpu.ops.family_estep import fused_gibbs_blockwise
+    from mimo_tpu.ops.family_estep import gibbs_engine
     from mimo_tpu.utils.linalg import logdet_psd
 
     n, kk, d = args.n, args.k, args.dim
@@ -203,13 +203,8 @@ def build_mixture_config(args, dtype):
         raise ValueError(fam)
 
     spec = model._estep_spec()
-    use_pallas = args.backend == 'pallas'
-    block = 128 if use_pallas else n
+    sweep_labels = gibbs_engine(spec, args.backend, n)
     gibbs_update = getattr(model.family, 'gibbs_update', None)
-
-    if use_pallas:
-        from mimo_tpu.ops.pallas_gibbs import fused_gibbs_pallas
-        from mimo_tpu.models.mixture import _pallas_xts
 
     def init(key):
         k1, k2 = jax.random.split(key)
@@ -228,17 +223,7 @@ def build_mixture_config(args, dtype):
         of fit_gibbs_fused, mixture.py)."""
         k_lab, k_par, k_pi = jax.random.split(key, 3)
         log_pi = jnp.log(jnp.clip(pi, 1e-37, None))
-        if use_pallas:
-            seed = jax.random.randint(k_lab, (), 0, 2**31 - 1,
-                                      dtype=jnp.int32)
-            xts = _pallas_xts(data, block, None)
-            _, res = fused_gibbs_pallas(spec, seed, params, log_pi, xts,
-                                        block, n)
-            res = jax.tree.map(lambda a: a.astype(dtype)
-                               if a.dtype != jnp.int32 else a, res)
-        else:
-            _, res = fused_gibbs_blockwise(spec, k_lab, params, log_pi,
-                                           data, block)
+        _, res = sweep_labels(k_lab, params, log_pi, data)
         if gibbs_update is None:
             comps = model.family.update(model.components_prior, res.stats)
             params = model.family.sample_params(k_par, comps)
@@ -261,7 +246,7 @@ def build_nested_config(args, dtype):
     import jax
     import jax.numpy as jnp
     from mimo_tpu.models.hmix import BayesianMixtureOfMixtures
-    from mimo_tpu.ops.family_estep import fused_gibbs_blockwise
+    from mimo_tpu.ops.family_estep import gibbs_engine
     from mimo_tpu.utils.linalg import logdet_psd, inv_psd, symmetrize
 
     n, d = args.n, args.dim
@@ -273,12 +258,8 @@ def build_nested_config(args, dtype):
     # tighten the hyper prior (as the flat legs do) so prior-predictive
     # data is non-degenerate
     spec = model._flat_spec()
-    use_pallas = args.backend == 'pallas'
-    block = 128 if use_pallas else n
+    sweep_labels = gibbs_engine(spec, args.backend, n)
     gibbs_update = model.family.gibbs_update
-    if use_pallas:
-        from mimo_tpu.ops.pallas_gibbs import fused_gibbs_pallas
-        from mimo_tpu.models.mixture import _pallas_xts
 
     def init(key):
         k1, k2, k3 = jax.random.split(key, 3)
@@ -313,17 +294,7 @@ def build_nested_config(args, dtype):
         log_pi = (jnp.log(jnp.clip(pi_o, 1e-37, None))[:, None]
                   + jnp.log(jnp.clip(pi_i, 1e-37, None))).reshape(-1)
         # spec.theta_plugin flattens the (M, K) axes itself (hmix._flat_spec)
-        if use_pallas:
-            seed = jax.random.randint(k_lab, (), 0, 2**31 - 1,
-                                      dtype=jnp.int32)
-            xts = _pallas_xts(data, block, None)
-            _, res = fused_gibbs_pallas(spec, seed, params, log_pi,
-                                        xts, block, n)
-            res = jax.tree.map(lambda a: a.astype(dtype)
-                               if a.dtype != jnp.int32 else a, res)
-        else:
-            _, res = fused_gibbs_blockwise(spec, k_lab, params,
-                                           log_pi, data, block)
+        _, res = sweep_labels(k_lab, params, log_pi, data)
         counts, stats = model._split_flat(res)
         _, params = jax.vmap(gibbs_update)(
             jax.random.split(k_par, mm), model.components_prior, stats)
@@ -361,9 +332,10 @@ def build_nested_config(args, dtype):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--backend', default='xla',
-                    choices=['xla', 'pallas'],
-                    help='pallas = the Mosaic on-core-PRNG label kernel '
-                         '(f32; interpret mode off-TPU)')
+                    choices=['xla', 'pallas', 'interpret'],
+                    help='pallas = the fused GPU label kernel (f32); '
+                         'interpret = that kernel through the Pallas '
+                         'interpreter (a CPU dry run)')
     ap.add_argument('--family', default='gmm', choices=FAMILIES)
     ap.add_argument('--draws', type=int, default=20000)
     ap.add_argument('--thin', type=int, default=2,
@@ -385,11 +357,8 @@ def main(argv=None):
     import jax
     if args.backend == 'xla' or args.f64:
         jax.config.update('jax_enable_x64', True)
-    jax.config.update('jax_compilation_cache_dir',
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), '.jax_cache'
-                      if jax.default_backend() == 'tpu'
-                      else '.jax_cache_tests'))
+    from mimo_tpu.utils.cache import use_compile_cache
+    use_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

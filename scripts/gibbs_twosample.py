@@ -1,128 +1,100 @@
-"""Statistical pinning of the Pallas Gibbs sampler (round-2 VERDICT weak
-#3): from ONE fixed (params, log_pi) state, draw S independent single
-label sweeps under (a) the XLA sampler (jax.random.categorical) and
-(b) the Mosaic kernel's on-core Gumbel-max PRNG, and compare the count
+"""Statistical pinning of the fused kernel's Gibbs label draw: from ONE
+fixed (params, log_pi) state, draw S independent single label sweeps
+under (a) the XLA sampler (jax.random.categorical, Gumbel-max) and (b) the
+kernel's inverse-CDF draw (ops/triton_estep.py), and compare the count
 vectors of both samplers against the EXACT per-state expectation
 
     E[counts_k] = sum_n p_nk,   Var[counts_k] = sum_n p_nk (1 - p_nk)
 
 (the labels are independent given the state, so the per-component counts
 are sums of independent Bernoullis). Reports per-component z-scores of
-each sampler's mean count (should be |z| ~< 3 under H0), a two-sample
-Welch z between the samplers, and a chi^2-style aggregate. Run on TPU:
+each sampler's mean count (|z| ~< 3.5 under H0), a two-sample Welch z
+between the samplers, a chi^2/df aggregate and the variance ratio. Prints
+one JSON line last.
 
-    python scripts/gibbs_twosample.py [S]
+    python scripts/gibbs_twosample.py [S]                  # on a GPU
+    python scripts/gibbs_twosample.py [S] --interpret      # CPU dry run
 """
+
+import argparse
+import json
+import os
 import sys
-sys.path.insert(0, '/root/repo')
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update('jax_compilation_cache_dir', '/root/repo/.jax_cache')
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 import jax.numpy as jnp
 import numpy as np
 
-from mimo_tpu.models.gmm import BayesianGMM
 from mimo_tpu.distributions.niw import GaussParams
-from mimo_tpu.ops.family_estep import fused_gibbs_blockwise
-from mimo_tpu.ops.pallas_gibbs import fused_gibbs_pallas
-
-S = int(sys.argv[1]) if len(sys.argv) > 1 else 256
-N, K, D = 100_000, 50, 2
-
-kg = jax.random.PRNGKey(0)
-mu = jax.random.normal(jax.random.fold_in(kg, 1), (3, D)) * 4.0
-lm = jnp.broadcast_to(jnp.eye(D) * 2.0, (3, D, D))
-x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm),
-                            jnp.array([.3, .4, .3]), N)
-model = BayesianGMM.make(size=K, dim=D, gating='dp', alpha=1.0,
-                         kappa=0.05, psi_scale=0.5)
-
-# one fixed mid-chain state from a short XLA chain
-gs = model.fit_gibbs_fused(x, key=3, maxiter=20, backend='xla')
-params = gs.params
-log_pi = gs.log_pi
-spec = model._estep_spec()
-
-# exact expectation under the fixed state
-feats = spec.features((x,))
-logp = feats @ spec.theta_plugin(params).T + log_pi[None, :]
-p = jax.nn.softmax(logp, axis=-1)
-e_counts = np.asarray(jnp.sum(p, axis=0), np.float64)          # (K,)
-v_counts = np.asarray(jnp.sum(p * (1 - p), axis=0), np.float64)
-
-# expectation under the KERNEL'S arithmetic: the Mosaic kernel computes
-# logp = bf16(theta_hi) @ bf16(F) + bf16(theta_lo) @ bf16(F) (DEFAULT
-# MXU passes with f32 accumulation, pallas_estep._dot_split). Emulating
-# that dot here separates "the sampler is biased" from "the sampler
-# exactly samples a ~1e-4-perturbed softmax" — only the latter is the
-# kernel's documented quantization contract.
-theta = spec.theta_plugin(params).astype(jnp.float32)
-theta = theta.at[:, 0].add(log_pi.astype(jnp.float32))
-th_hi = theta.astype(jnp.bfloat16)
-th_lo = (theta - th_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-f_b = feats.astype(jnp.float32).astype(jnp.bfloat16)
-logp_q = (jnp.dot(f_b, th_hi.T, preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.DEFAULT)
-          + jnp.dot(f_b, th_lo.T, preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.DEFAULT))
-pq = jax.nn.softmax(logp_q, axis=-1)
-eq_counts = np.asarray(jnp.sum(pq, axis=0), np.float64)
-vq_counts = np.asarray(jnp.sum(pq * (1 - pq), axis=0), np.float64)
-
-block = 32768
+from mimo_tpu.models.gmm import BayesianGMM
+from mimo_tpu.ops.family_estep import gibbs_engine
+from mimo_tpu.utils.cache import use_compile_cache
 
 
-@jax.jit
-def xla_counts(key):
-    _, res = fused_gibbs_blockwise(spec, key, params, log_pi, (x,), 25000)
-    return res.counts
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('sweeps', type=int, nargs='?', default=256)
+    ap.add_argument('--n', type=int, default=100_000)
+    ap.add_argument('--interpret', action='store_true',
+                    help='run the kernel through the Pallas interpreter')
+    args = ap.parse_args()
+    use_compile_cache()
+    s_, n, k, d = args.sweeps, args.n, 50, 2
+
+    kg = jax.random.PRNGKey(0)
+    mu = jax.random.normal(jax.random.fold_in(kg, 1), (3, d)) * 4.0
+    lm = jnp.broadcast_to(jnp.eye(d) * 2.0, (3, d, d))
+    x, _ = BayesianGMM.generate(kg, GaussParams(mu, lm),
+                                jnp.array([.3, .4, .3]), n)
+    x = x.astype(jnp.float32)
+    model = BayesianGMM.make(size=k, dim=d, gating='dp', alpha=1.0,
+                             kappa=0.05, psi_scale=0.5)
+    # one fixed mid-chain state from a short XLA chain
+    gs = model.fit_gibbs_fused(x, key=3, maxiter=20, backend='xla')
+    params, log_pi = gs.params, gs.log_pi
+    spec = model._estep_spec()
+
+    logp = spec.features((x,)) @ spec.theta_plugin(params).T + log_pi[None]
+    p = np.asarray(jax.nn.softmax(logp.astype(jnp.float64)
+                                  if jax.config.jax_enable_x64 else logp,
+                                  axis=-1), np.float64)
+    e_counts = p.sum(0)
+    v_counts = (p * (1 - p)).sum(0)
+
+    def sampler(engine):
+        sweep = gibbs_engine(spec, engine, n)
+        return jax.jit(lambda key: sweep(key, params, log_pi, (x,))[1].counts)
+
+    xla = sampler('xla')
+    ker = sampler('interpret' if args.interpret else 'pallas')
+    cx = np.stack([np.asarray(xla(jax.random.PRNGKey(1000 + i)))
+                   for i in range(s_)]).astype(np.float64)
+    cp = np.stack([np.asarray(ker(jax.random.PRNGKey(5000 + i)))
+                   for i in range(s_)]).astype(np.float64)
+
+    sd = np.sqrt(np.maximum(v_counts, 1e-12))
+    live = e_counts > 5               # z-scores meaningless for ~empty k
+    zx = (cx.mean(0) - e_counts) / (sd / np.sqrt(s_))
+    zp = (cp.mean(0) - e_counts) / (sd / np.sqrt(s_))
+    zw = (cp.mean(0) - cx.mean(0)) / np.sqrt(cx.var(0) / s_
+                                             + cp.var(0) / s_ + 1e-12)
+    out = {
+        'sweeps': s_, 'n': n, 'k': k, 'live': int(live.sum()),
+        'xla_max_abs_z': float(np.abs(zx[live]).max()),
+        'kernel_max_abs_z': float(np.abs(zp[live]).max()),
+        'welch_max_abs_z': float(np.abs(zw[live]).max()),
+        'xla_chi2_per_df': float(np.mean(zx[live] ** 2)),
+        'kernel_chi2_per_df': float(np.mean(zp[live] ** 2)),
+        'xla_var_ratio': float((cx.var(0)[live] / v_counts[live]).mean()),
+        'kernel_var_ratio': float((cp.var(0)[live] / v_counts[live]).mean()),
+        'device': jax.devices()[0].device_kind,
+    }
+    for key_, val in out.items():
+        print(f'{key_:20s} {val}')
+    print(json.dumps(out))
 
 
-n_pad = -(-N // block) * block
-xts = (jnp.pad(x.astype(jnp.float32).T, ((0, 0), (0, n_pad - N))),)
-
-
-@jax.jit
-def pallas_counts(seed):
-    _, res = fused_gibbs_pallas(spec, seed, params, log_pi, xts, block, N)
-    return res.counts
-
-
-cx = np.stack([np.asarray(xla_counts(jax.random.PRNGKey(1000 + s)))
-               for s in range(S)]).astype(np.float64)
-cp = np.stack([np.asarray(pallas_counts(jnp.int32(2000 + s)))
-               for s in range(S)]).astype(np.float64)
-
-sd = np.sqrt(np.maximum(v_counts, 1e-12))
-sdq = np.sqrt(np.maximum(vq_counts, 1e-12))
-live = e_counts > 5                      # z-scores meaningless for ~empty k
-zx = (cx.mean(0) - e_counts) / (sd / np.sqrt(S))
-zp = (cp.mean(0) - e_counts) / (sd / np.sqrt(S))
-zq = (cp.mean(0) - eq_counts) / (sdq / np.sqrt(S))
-zw = (cp.mean(0) - cx.mean(0)) / np.sqrt(cx.var(0) / S + cp.var(0) / S
-                                         + 1e-12)
-
-print(f'S={S} sweeps/sampler, N={N}, K={K}, live components: '
-      f'{int(live.sum())}')
-print(f'xla    vs exact: max |z| = {np.abs(zx[live]).max():.2f}, '
-      f'mean |z| = {np.abs(zx[live]).mean():.2f}')
-print(f'pallas vs exact: max |z| = {np.abs(zp[live]).max():.2f}, '
-      f'mean |z| = {np.abs(zp[live]).mean():.2f}')
-print(f'pallas vs kernel-arith expectation: max |z| = '
-      f'{np.abs(zq[live]).max():.2f}, mean |z| = '
-      f'{np.abs(zq[live]).mean():.2f}')
-print(f'quantization shift itself: max |dE|/sd = '
-      f'{np.abs((eq_counts - e_counts)[live] / sd[live]).max() * np.sqrt(S):.2f} '
-      f'sweep-mean sigmas at S={S}')
-print(f'pallas vs xla (Welch): max |z| = {np.abs(zw[live]).max():.2f}, '
-      f'mean |z| = {np.abs(zw[live]).mean():.2f}')
-# aggregate chi^2 (sum z^2 over live comps ~ chi2(df); mean should be ~1)
-print(f'chi2/df: xla {np.mean(zx[live] ** 2):.2f}, '
-      f'pallas {np.mean(zp[live] ** 2):.2f}, '
-      f'pallas-vs-kernel-arith {np.mean(zq[live] ** 2):.2f} (expect ~1)')
-# empirical per-sweep variance should match the Bernoulli variance too
-rvx = cx.var(0)[live] / v_counts[live]
-rvp = cp.var(0)[live] / v_counts[live]
-print(f'var ratio (empirical/exact): xla {rvx.mean():.3f}, '
-      f'pallas {rvp.mean():.3f} (expect ~1)')
+if __name__ == '__main__':
+    main()

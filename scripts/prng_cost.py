@@ -1,6 +1,7 @@
 """Isolate the cost of categorical label sampling at N=1e7, K=50:
-full Gumbel-max (N x K bits) vs inverse-CDF (N bits + cumsum) — to see
-where the Gibbs sweep's 39/s vs VI's 84/s gap comes from."""
+full Gumbel-max (N x K bits) vs inverse-CDF (N bits + cumsum), the two
+draws the XLA Gibbs engine and the fused kernel (ops/triton_estep.py)
+use."""
 
 import sys
 import os

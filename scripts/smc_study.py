@@ -1,7 +1,7 @@
 """SMC value study: when does smc_gibbs beat independent restarts?
 
-`fit_chains` gives 16 independent Gibbs chains for ~the cost of one fit
-(BENCH_NOTES chains row); `smc_gibbs` adds systematic resampling of
+`fit_chains` gives 16 independent Gibbs chains in one vmapped program;
+`smc_gibbs` adds systematic resampling of
 chain states by data log-likelihood. Resampling costs nothing extra but
 kills diversity — so it only pays when independent chains get STUCK in
 bad modes they cannot leave. This study measures exactly that, on a
@@ -22,7 +22,7 @@ predict-after-resample workflow of examples/dgmm/gibbs_dgmm.py:60).
 Prints per-arm: best / mean / worst chain, and the fraction of chains
 within 1 nat/point of the best (the "rescued chains" number — the
 quantity resampling actually improves). Conclusion recorded in
-BENCH_NOTES (round 4 SMC section).
+DESIGN.md section 12, item 5.
 
     python scripts/smc_study.py [--seeds 5]
 """
@@ -36,13 +36,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if jax.default_backend() != 'tpu':
+from mimo_tpu.utils.cache import use_compile_cache  # noqa: E402
+
+if jax.default_backend() == 'cpu':
     jax.config.update('jax_enable_x64', True)
-jax.config.update('jax_compilation_cache_dir',
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))),
-                      '.jax_cache' if jax.default_backend() == 'tpu'
-                      else '.jax_cache_tests'))
+use_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -69,7 +67,7 @@ def score_chains(model, states, x_test):
     the standard serving surface (predict-after-resample)."""
     def one(components, gating):
         st = MFState(components=components, gating=gating)
-        return jnp.mean(model.log_predictive(st, x_test, backend='xla'))
+        return jnp.mean(model.log_predictive(st, x_test))
     return np.asarray(jax.jit(jax.vmap(one))(states.components,
                                              states.gating))
 

@@ -1,13 +1,14 @@
-"""Block-size sweep for the fused VI engine at N=1e7 (K=50, d=2)."""
+"""Block-size sweep for the XLA fused VI engine at N=1e7 (K=50, d=2)."""
 import sys, os, time
 _repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _repo)
 import jax
-jax.config.update('jax_compilation_cache_dir', os.path.join(_repo, '.jax_cache'))
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
 import jax.numpy as jnp
 from mimo_tpu.models.gmm import BayesianGMM
 from mimo_tpu.distributions.niw import GaussParams
+from mimo_tpu.utils.cache import use_compile_cache
+
+use_compile_cache()
 
 N, K, D, ITERS = 10_000_000, 50, 2, 100
 sizes = [int(a) for a in sys.argv[1:]] or [500_000, 1_000_000, 2_000_000]
@@ -20,13 +21,15 @@ model = BayesianGMM.make(size=K, dim=D, gating='dp', alpha=1.0, kappa=0.05, psi_
 
 for bs in sizes:
     t0 = time.time()
-    st, v = model.fit_vi_fused(x, key=1, maxiter=ITERS, block_size=bs)
+    st, v = model.fit_vi_fused(x, key=1, maxiter=ITERS, block_size=bs,
+                                 backend='xla')
     jax.block_until_ready(v)
     print(f'bs={bs:8d}: compile+run {time.time()-t0:.1f}s', flush=True)
     best = 0.0
     for _ in range(2):
         t0 = time.time()
-        st, v = model.fit_vi_fused(x, key=1, maxiter=ITERS, block_size=bs)
+        st, v = model.fit_vi_fused(x, key=1, maxiter=ITERS, block_size=bs,
+                                 backend='xla')
         jax.block_until_ready(v)
         best = max(best, ITERS / (time.time() - t0))
     print(f'bs={bs:8d}: {best:7.1f} iters/s  elbo={float(v[-1]):.6g}', flush=True)

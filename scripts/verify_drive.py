@@ -1,8 +1,11 @@
 """/verify drive: flagship flows end-to-end (see .claude/skills/verify)."""
+import os
 import sys
-sys.path.insert(0, '/root/repo')
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
-jax.config.update('jax_compilation_cache_dir', '/root/repo/.jax_cache')
+from mimo_tpu.utils.cache import use_compile_cache
+
+use_compile_cache()
 import numpy as np
 import jax.numpy as jnp
 from mimo_tpu.models import BayesianGMM, BayesianILR

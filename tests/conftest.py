@@ -1,13 +1,23 @@
 """Test configuration: force a virtual 8-device CPU mesh so sharding tests
-run without TPU hardware, and enable x64 so parity oracles are exact.
+run without a GPU, and enable x64 so parity oracles are exact.
 
 (The package itself is dtype-polymorphic; production runs are float32 on
-TPU. Tests use float64 CPU to separate math bugs from rounding.)
+the GPU. Tests use float64 CPU to separate math bugs from rounding.)
+
+`pytest -m gpu` selects the tests that run the compiled kernels and
+leaves JAX on its default platform, the GPU; every other selection runs
+on the CPU. Each gpu test skips (through the `gpu` fixture) where JAX
+finds no GPU. Run them in one process per card, without xdist.
 """
 
 import os
+import sys
 
-os.environ.setdefault('JAX_PLATFORMS', 'cpu')
+_GPU_RUN = sys.argv[sys.argv.index('-m') + 1:][:1] == ['gpu'] \
+    if '-m' in sys.argv else False
+
+if not _GPU_RUN:
+    os.environ.setdefault('JAX_PLATFORMS', 'cpu')
 flags = os.environ.get('XLA_FLAGS', '')
 if '--xla_force_host_platform_device_count' not in flags:
     os.environ['XLA_FLAGS'] = (
@@ -18,16 +28,16 @@ import jax  # noqa: E402
 # Belt and braces: a pytest plugin may have imported jax before this
 # conftest ran, in which case the env vars above are too late — but the
 # config flags still apply as long as no backend has been initialized.
-jax.config.update('jax_platforms', 'cpu')
-jax.config.update('jax_num_cpu_devices', 8)
+if not _GPU_RUN:
+    jax.config.update('jax_platforms', 'cpu')
+    jax.config.update('jax_num_cpu_devices', 8)
 jax.config.update('jax_enable_x64', True)
 
-# Persistent compilation cache: the suite is compile-dominated on this
-# 4-core box (measured ~4x on warm fit_* runs); first run populates,
-# every later run loads. Kept separate from the TPU cache (.jax_cache).
-jax.config.update('jax_compilation_cache_dir',
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), '.jax_cache_tests'))
+# Persistent compilation cache: the suite is compile-dominated, so the
+# first run populates it and later runs load.
+from mimo_tpu.utils.cache import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 jax.config.update('jax_persistent_cache_min_compile_time_secs', 0.3)
 
 import numpy as np  # noqa: E402
@@ -38,7 +48,7 @@ import pytest  # noqa: E402
 # ~16 min cold). Marked slow: everything in test_examples.py
 # (subprocess smoke of the demo drivers) plus every test with a
 # measured COLD call time >= 4 s (pytest --durations on a clean
-# .jax_cache_tests; the compile cache makes warm re-runs ~2-4x
+# .jax_cache; the compile cache makes warm re-runs ~2-4x
 # faster, but a fresh checkout pays the cold cost).
 _SLOW = {
     'test_backend_pallas_fit_matches_xla',
@@ -49,11 +59,6 @@ _SLOW = {
     'test_expected_log_likelihood_monte_carlo',
     'test_fit_chains_cached_and_deterministic',
     'test_fit_with_checkpoints_resume',
-    'test_fused_estep_matches_dense',
-    'test_fused_ilr_predict_matches_dense',
-    'test_fused_ilr_predict_multi_output',
-    'test_fused_nested_ilr_predict_multi_output',
-    'test_fused_estep_pallas_matches_blockwise',
     'test_fused_refit_different_n',
     'test_gibbs_fused_sharded_runs',
     'test_gibbs_loglik_trace',
@@ -75,7 +80,6 @@ _SLOW = {
     'test_hmix_fused_vi_gmm',
     'test_hmix_fused_vi_ilr',
     'test_hmix_svi_mesh',
-    'test_fused_hier_predictive_matches_dense',
     'test_hmix_fused_vi_sharded_equals_unsharded',
     'test_hmix_ilr_backend_pallas_fit_matches_xla',
     'test_hmix_pallas_sharded_equals_unsharded',
@@ -83,7 +87,6 @@ _SLOW = {
     'test_ilr_backend_pallas_fit_matches_xla',
     'test_ilr_fused_equals_standard',
     'test_ilr_fused_gibbs_recovers',
-    'test_ilr_pallas_estep_matches_blockwise',
     'test_ilr_pallas_sharded_equals_unsharded',
     'test_ilr_predict_sharded_kernel_equals_dense',
     'test_ilr_sharded_vi',

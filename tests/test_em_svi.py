@@ -194,13 +194,12 @@ def test_map_fused_matches_dense(gmm_data):
 
 
 def test_em_map_fused_pallas_interpret(gmm_data):
-    """The kernel path (interpret mode off-TPU) stays finite and lands on
-    the same optimum as the dense engines (f32: exact trace equality is
-    not expected through the bf16-emulating interpreter)."""
+    """The kernel path (interpret mode) stays finite and lands on the
+    same optimum as the dense engines (f32 kernel against the f64
+    dense engine)."""
     x = gmm_data.astype(jnp.float32)
     m = BayesianGMM.make(size=3, dim=2)
-    st, ll = m.fit_em_fused(x, key=0, maxiter=30, backend='pallas',
-                            block_size=512)
+    st, ll = m.fit_em_fused(x, key=0, maxiter=30, backend='interpret')
     assert np.isfinite(np.asarray(ll)).all()
     m2 = BayesianGMM.make(size=3, dim=2)
     st_d, ll_d = m2.fit_em(x, key=0, maxiter=30)
@@ -208,8 +207,7 @@ def test_em_map_fused_pallas_interpret(gmm_data):
                                rtol=1e-4)
     m3 = BayesianGMM.make(size=4, dim=2, gating='dp', kappa=0.05,
                           psi_scale=0.5)
-    stm, llm = m3.fit_map_fused(x, key=1, maxiter=30, backend='pallas',
-                                block_size=512)
+    stm, llm = m3.fit_map_fused(x, key=1, maxiter=30, backend='interpret')
     assert np.isfinite(np.asarray(llm)).all()
 
 

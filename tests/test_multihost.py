@@ -43,17 +43,17 @@ def test_multi_process_global_mesh_matches_single_process(nprocs,
 
 @pytest.mark.slow
 def test_multi_process_pallas_and_chain_axis():
-    """The production TPU-pod combination — Mosaic kernels under
-    shard_map across processes (interpret mode on CPU devices) — plus a
-    fit_chains leg on a ('chain','data') = (2, 2) mesh with restarts
-    sharded over processes. Both must equal the 1-process oracle."""
+    """The fused kernel under shard_map across processes (interpret mode
+    on CPU devices) plus a fit_chains leg on a ('chain','data') = (2, 2)
+    mesh with restarts sharded over processes. Both must equal the
+    1-process oracle."""
     p = subprocess.run(
         [sys.executable, SCRIPT, '--nprocs', '2', '--devices', '2',
-         '--backend', 'pallas', '--f32', '--n-chain', '2',
+         '--backend', 'interpret', '--f32', '--n-chain', '2',
          '--timeout', '540'],
         cwd=REPO, capture_output=True, text=True, timeout=600)
     assert p.returncode == 0, p.stdout + p.stderr
     result = json.loads(p.stdout.strip().splitlines()[-1])
     assert result['ok'] and result['failed'] == 0
-    assert result['backend'] == 'pallas' and result['n_chain'] == 2
+    assert result['backend'] == 'interpret' and result['n_chain'] == 2
     assert 'fit_chains' in result['engines']

@@ -101,9 +101,9 @@ def test_stick_breaking_kl_finite_at_huge_counts():
 def test_fused_engines_nan_workflow_via_compaction(data):
     """The big-N NaN workflow for the FUSED engines: compact NaN rows
     host-side (nan_mask -> boolean drop, a one-time preprocessing cost)
-    and run the fused engine on the clean subset — the Mosaic/XLA
-    fused paths accept any N (pad + tail mask), so no point_weights
-    plumbing is needed in the kernels. Statistics equality: fused
+    and run the fused engine on the clean subset — the fused paths
+    accept any N (a tail mask, or a block dividing N), so no
+    point_weights plumbing is needed in the kernels. Statistics equality: fused
     E-step on the compacted data == dense weighted suff_stats on the
     full data with zero weights on NaN rows."""
     from mimo_tpu.ops.family_estep import fused_estep_blockwise
